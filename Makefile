@@ -1,8 +1,8 @@
-# go_tfhe_tpu build/test targets (reference analogue: /root/reference/Makefile)
+# go_tfhe_jax build/test targets (reference analogue: /root/reference/Makefile)
 
 PY ?= python
 
-.PHONY: test test-quick test-slow test-tpu bench examples entry-check lint
+.PHONY: test test-quick test-slow test-gpu bench smoke examples entry-check lint
 
 test:            ## default tier (CPU, 8 virtual devices; excludes slow+production)
 	$(PY) -m pytest tests/ -q
@@ -13,9 +13,12 @@ test-quick:      ## alias of the default tier
 test-slow:       ## long-running tests incl. production parameter sets
 	$(PY) -m pytest tests/ -q -m "slow or production" --override-ini addopts=
 
-test-tpu:        ## production-scale noise-margin tests on a real TPU
-	GO_TFHE_TPU_TEST_PLATFORM=tpu $(PY) -m pytest \
-	  tests/test_noise_margin.py -q --override-ini addopts= -v
+test-gpu:        ## card-only tests (marker `gpu`), e.g. production noise margins
+	JAX_PLATFORMS=cuda,cpu $(PY) -m pytest tests/ -m gpu -q \
+	  --override-ini addopts= -v
+
+smoke:           ## main path on one GPU vs the plain reference (chip_smoke.py)
+	$(PY) chip_smoke.py
 
 bench:           ## headline benchmark (one JSON line)
 	$(PY) bench.py
@@ -33,18 +36,15 @@ entry-check:     ## driver entry points: compile check + multichip dry run
 bench-micro:     ## per-op micro-benchmarks (keygen/enc/dec/PBS/proxy)
 	$(PY) bench_micro.py
 
-artifacts:       ## refresh NOISE/MICRO/BENCH-variant artifacts (TPU host)
-	bash tools/collect_artifacts.sh
-
-profile:         ## per-kernel split timing of the blind-rotate step (TPU)
-	$(PY) tools/split_timing.py
+profile:         ## trace the 128bit_fast bootstrap; device time per kernel class
+	$(PY) tools/profile_step.py
 
 warm:            ## pre-populate the persistent XLA compilation cache for the
 	         ## production profiles (first-ever compile of the 700-step loop
 	         ## takes minutes; afterwards every process start is seconds)
 	$(PY) tools/warm_cache.py
 
-CACHE_TARBALL ?= go_tfhe_tpu_xla_cache.tar.gz
+CACHE_TARBALL ?= go_tfhe_jax_xla_cache.tar.gz
 warm-pack:       ## warm, then pack the cache into a relocatable artifact
 	$(PY) tools/warm_cache.py --pack $(CACHE_TARBALL)
 

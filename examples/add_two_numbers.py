@@ -1,6 +1,6 @@
 """8-bit homomorphic addition two ways.
 
-TPU-native take on /root/reference/examples/add_two_numbers/main.go:
+Batched take on the reference's examples/add_two_numbers/main.go:
 
 * PBS nibble method — 3 programmable bootstraps on a messageModulus-32
   profile (low-sum LUT, carry LUT, high-sum LUT).
@@ -22,19 +22,14 @@ import time
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.utils.backend import select_backend
-from go_tfhe_tpu import bitutils, cipher
-from go_tfhe_tpu.models import adders
+import go_tfhe_jax as tfhe
+from go_tfhe_jax.utils.cache import enable_compilation_cache
+from go_tfhe_jax import bitutils, cipher
+from go_tfhe_jax.models import adders
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "cpu", "tpu"),
-                    help="platform; auto picks TPU only for Pallas-eligible "
-                         "profiles (JAX_PLATFORMS env is overridden by TPU "
-                         "plugins -- see utils/backend.py)")
     ap.add_argument("--profile", default="test_nibble",
                     help="messageModulus>=32 profile (uint5 for production)")
     ap.add_argument("--bool-profile", default="test_fast",
@@ -48,14 +43,8 @@ def main():
 
     # ---- PBS nibble method -------------------------------------------------
     p = tfhe.get_params(args.profile)
-    # This example runs TWO profiles (PBS + ripple-carry boolean); the
-    # platform is frozen at first use, so auto-select on the less
-    # TPU-friendly of the two.
-    from go_tfhe_tpu.utils.backend import pallas_eligible
-    p_bool = tfhe.get_params(args.bool_profile)
-    pick = p if pallas_eligible(p_bool) else p_bool
-    backend = select_backend(pick, args.backend)
-    print(f"backend: {backend}")
+    enable_compilation_cache()
+    print(f"device: {jax.devices()[0].device_kind}")
     assert p.message_modulus >= 32, "nibble adder needs messageModulus >= 32"
     print(f"[PBS nibble] profile: {tfhe.security_info(p)}")
     k_sk, k_ck, k_e = jax.random.split(jax.random.PRNGKey(0), 3)

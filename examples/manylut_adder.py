@@ -12,8 +12,7 @@ the sum (s&1) and carry (s>>1) look-up tables escape the negacyclic
 antisymmetry constraint that blocks XOR in the +-1/8 boolean encoding.
 
 Run:  python examples/manylut_adder.py [--profile test_nibble] [--batch 4]
-Measured on a TPU v5e at 128bit_fast: 8,155 full-adders/s at batch 4096
-(NOISE_MANY_r05.json).
+(chip_smoke.py phase (c) runs the same adder at 128bit_fast on the card.)
 """
 
 import argparse
@@ -26,16 +25,14 @@ import time
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher
-from go_tfhe_tpu.models import adders
-from go_tfhe_tpu.utils.backend import enable_compilation_cache, select_backend
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher
+from go_tfhe_jax.models import adders
+from go_tfhe_jax.utils.cache import enable_compilation_cache
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "cpu", "tpu"))
     ap.add_argument("--profile", default="test_nibble",
                     help="any plain (poly_extend_factor=1) profile; "
                          "128bit_fast for production")
@@ -44,7 +41,6 @@ def main():
     args = ap.parse_args()
 
     p = tfhe.get_params(args.profile)
-    select_backend(p, args.backend)
     enable_compilation_cache()
 
     rng = np.random.default_rng(0)

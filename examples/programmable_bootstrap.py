@@ -1,6 +1,6 @@
 """Programmable bootstrapping: arbitrary functions on encrypted integers.
 
-TPU-native take on /root/reference/examples/programmable_bootstrap/main.go:
+Batched take on the reference's examples/programmable_bootstrap/main.go:
 identity / negation / constant / mod-4-increment LUTs, plus LUT reuse across
 a batch and per-ciphertext LUT batching (beyond the reference's API).
 
@@ -18,23 +18,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.utils.backend import select_backend
-from go_tfhe_tpu import cipher, lut
+import go_tfhe_jax as tfhe
+from go_tfhe_jax.utils.cache import enable_compilation_cache
+from go_tfhe_jax import cipher, lut
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "cpu", "tpu"),
-                    help="platform; auto picks TPU only for Pallas-eligible "
-                         "profiles (JAX_PLATFORMS env is overridden by TPU "
-                         "plugins -- see utils/backend.py)")
     ap.add_argument("--profile", default="test_pbs")
     args = ap.parse_args()
     p = tfhe.get_params(args.profile)
-    backend = select_backend(p, args.backend)
-    print(f"backend: {backend}")
+    enable_compilation_cache()
+    print(f"device: {jax.devices()[0].device_kind}")
     m = p.message_modulus
     print(f"profile: {tfhe.security_info(p)}; messageModulus={m}")
 

@@ -1,6 +1,6 @@
 """LWE proxy re-encryption walkthrough.
 
-TPU-native take on /root/reference/examples/proxy_reencryption/main.go:
+Batched take on the reference's examples/proxy_reencryption/main.go:
 Alice encrypts; a proxy transforms her ciphertexts to Bob's key (symmetric
 and asymmetric re-encryption keys); a 3-hop chain Alice -> Bob -> Carol.
 All re-encryptions are batched.
@@ -18,9 +18,9 @@ import time
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.utils.backend import select_backend
-from go_tfhe_tpu import cipher, proxyreenc
+import go_tfhe_jax as tfhe
+from go_tfhe_jax.utils.cache import enable_compilation_cache
+from go_tfhe_jax import cipher, proxyreenc
 
 
 def acc(dec, bits):
@@ -29,17 +29,12 @@ def acc(dec, bits):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "cpu", "tpu"),
-                    help="platform; auto picks TPU only for Pallas-eligible "
-                         "profiles (JAX_PLATFORMS env is overridden by TPU "
-                         "plugins -- see utils/backend.py)")
     ap.add_argument("--profile", default="test_fast")
     ap.add_argument("--batch", type=int, default=64)
     args = ap.parse_args()
     p = tfhe.get_params(args.profile)
-    backend = select_backend(p, args.backend)
-    print(f"backend: {backend}")
+    enable_compilation_cache()
+    print(f"device: {jax.devices()[0].device_kind}")
     print(f"profile: {tfhe.security_info(p)}")
 
     ks = jax.random.split(jax.random.PRNGKey(0), 8)

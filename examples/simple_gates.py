@@ -1,6 +1,6 @@
 """Homomorphic boolean gates over all input combinations.
 
-TPU-native take on /root/reference/examples/simple_gates/main.go: instead of
+Batched take on the reference's examples/simple_gates/main.go: instead of
 looping over the 4 (a, b) combos gate by gate, every gate evaluates all
 combos in ONE batched bootstrap.
 
@@ -17,24 +17,19 @@ import time
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.utils.backend import select_backend
-from go_tfhe_tpu import cipher, gates
+import go_tfhe_jax as tfhe
+from go_tfhe_jax.utils.cache import enable_compilation_cache
+from go_tfhe_jax import cipher, gates
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="auto",
-                    choices=("auto", "cpu", "tpu"),
-                    help="platform; auto picks TPU only for Pallas-eligible "
-                         "profiles (JAX_PLATFORMS env is overridden by TPU "
-                         "plugins -- see utils/backend.py)")
     ap.add_argument("--profile", default="test_fast",
                     help="parameter profile (e.g. 128bit, 80bit, test_fast)")
     args = ap.parse_args()
     p = tfhe.get_params(args.profile)
-    backend = select_backend(p, args.backend)
-    print(f"backend: {backend}")
+    enable_compilation_cache()
+    print(f"device: {jax.devices()[0].device_kind}")
     print(f"profile: {tfhe.security_info(p)}")
 
     k_sk, k_ck, ka, kb = jax.random.split(jax.random.PRNGKey(0), 4)

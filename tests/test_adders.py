@@ -5,9 +5,9 @@ import jax
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import bitutils, cipher
-from go_tfhe_tpu.models import adders
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import bitutils, cipher
+from go_tfhe_jax.models import adders
 
 
 def test_half_adder(fast_keys):

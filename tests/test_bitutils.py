@@ -3,8 +3,8 @@
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import bitutils
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import bitutils
 
 
 def test_lsb_first_order():
@@ -46,9 +46,9 @@ def test_message_bit_roundtrip():
     and feeds ripple_add_manylut end-to-end."""
     import jax
     import numpy as np
-    import go_tfhe_tpu as tfhe
-    from go_tfhe_tpu import bitutils
-    from go_tfhe_tpu.models import adders
+    import go_tfhe_jax as tfhe
+    from go_tfhe_jax import bitutils
+    from go_tfhe_jax.models import adders
 
     p = tfhe.TEST_NIBBLE
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(41), 3)

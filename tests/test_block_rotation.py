@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, engine, gates
-from go_tfhe_tpu.utils.rng import block_binary_key
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, engine, gates
+from go_tfhe_jax.utils.rng import block_binary_key
 
 A = np.array([False, False, True, True])
 B = np.array([False, True, False, True])
@@ -101,9 +101,9 @@ def test_block_vs_perbit_same_key(block_keys):
     cb = cipher.lwe_encrypt_bool(kb, B, p.lwe_alpha, sk.lv0)
     prepared = engine.prepare_nand(ca, cb)
     out_blk = engine._bootstrap_core_block(
-        p, True, ck.bsk_kernel, ck.ksk, prepared, ck.testvec)
+        p, True, ck.bsk_limbs, ck.ksk, prepared, ck.testvec)
     out_std = engine._bootstrap_core(
-        p, True, ck.bsk_kernel, ck.ksk, prepared, ck.testvec)
+        p, True, ck.bsk_limbs, ck.ksk, prepared, ck.testvec)
     want = ~(A & B)
     np.testing.assert_array_equal(
         np.asarray(cipher.lwe_decrypt_bool(out_blk, sk.lv0)), want)
@@ -113,7 +113,7 @@ def test_block_vs_perbit_same_key(block_keys):
 
 def test_block_pbs(block_keys):
     """Programmable bootstrap through the block engine (LUT testvec)."""
-    from go_tfhe_tpu import lut
+    from go_tfhe_jax import lut
     p, sk, ck = block_keys
     ct = cipher.lwe_encrypt_message(jax.random.PRNGKey(10),
                                     np.array([0, 1, 0, 1]), 2,

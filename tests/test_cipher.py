@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher
 
 P = tfhe.TEST_FAST
 
@@ -91,7 +91,7 @@ def test_sample_extract_to_lv0():
     ring degree equals lwe_n; the extracted sample decrypts under the ring
     key read as a level-0 key."""
     import pytest
-    from go_tfhe_tpu.ops import sample_extract, sample_extract_to_lv0
+    from go_tfhe_jax.ops import sample_extract, sample_extract_to_lv0
 
     sk = _keys()
     bits = np.asarray(

@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher
-from go_tfhe_tpu.models import comparators
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher
+from go_tfhe_jax.models import comparators
 
 
 @pytest.fixture(scope="module")

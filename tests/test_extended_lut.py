@@ -11,12 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
+import go_tfhe_jax as tfhe
 from conftest import monomial_mul_oracle
-from go_tfhe_tpu import cipher, lut
-from go_tfhe_tpu.ops.blindrotate import mod_switch_general
-from go_tfhe_tpu.ops.rotate import (monomial_mul_blocks,
-                                    monomial_mul_blocks_log)
+from go_tfhe_jax import cipher, lut
+from go_tfhe_jax.ops.blindrotate import mod_switch_general
+from go_tfhe_jax.ops.rotate import monomial_mul_blocks
 
 
 def _interleave(big, k):
@@ -57,20 +56,20 @@ def test_block_rotation_batched():
 
 
 @pytest.mark.parametrize("k", [2, 3, 9])
-def test_block_rotation_log_matches_gather_form(k):
-    """The TPU fast path (static-shift bit composition) must be bit-exact
-    with the gather form for every t in [0, 2kN) — including non-power-of-
-    two k where 2^j shifts exceed the modulus."""
+def test_block_rotation_every_shift(k):
+    """The block rotation equals the big-polynomial Go rotation for every
+    t in [0, 2kN) — including non-power-of-two k."""
     n = 16
     rng = np.random.default_rng(100 + k)
-    acc = jnp.asarray(rng.integers(
-        0, 1 << 32, size=(2, k, 2, n), dtype=np.uint64).astype(np.uint32))
+    big = rng.integers(0, 1 << 32, size=(k * n,), dtype=np.uint64).astype(
+        np.uint32)
+    acc = jnp.asarray(np.stack([_interleave(big, k)] * 2, axis=-2))
     ts = np.arange(2 * k * n, dtype=np.int32)
     got = np.asarray(jax.vmap(
-        lambda t: monomial_mul_blocks_log(acc, t, k))(jnp.asarray(ts)))
-    want = np.asarray(jax.vmap(
         lambda t: monomial_mul_blocks(acc, t, k))(jnp.asarray(ts)))
-    np.testing.assert_array_equal(got, want)
+    for t in ts:
+        want = _interleave(monomial_mul_oracle(big, int(t)), k)
+        np.testing.assert_array_equal(got[t, :, 0], want, err_msg=f"t={t}")
 
 
 def test_mod_switch_general_exact():
@@ -86,7 +85,7 @@ def test_mod_switch_general_exact():
 
 
 def test_mod_switch_general_matches_shift_form():
-    from go_tfhe_tpu.ops.blindrotate import mod_switch_2n
+    from go_tfhe_jax.ops.blindrotate import mod_switch_2n
     p = tfhe.TEST_FAST
     rng = np.random.default_rng(2)
     xs = rng.integers(0, 1 << 32, size=(50,), dtype=np.uint64).astype(

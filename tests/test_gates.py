@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, gates
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, gates
 
 A = np.array([False, False, True, True])
 B = np.array([False, True, False, True])

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher
 
 P = tfhe.TEST_FAST
 
@@ -26,7 +26,9 @@ def test_cloud_key_shapes(fast_keys):
     assert ck.testvec.shape == (2, p.n)
     assert ck.ksk.shape == (p.n, p.iks_t, p.base, p.lwe_n + 1)
     assert ck.bsk.shape == (p.lwe_n, 2 * p.l, 2, p.n)
-    assert ck.bsk_kernel.shape == (p.lwe_n, 2 * p.l, 2, 2 * p.n)
+    nl = 4 - p.kernel_limb_drop
+    assert ck.bsk_limbs.shape == (nl, p.lwe_n, 2 * p.l, 2, 2 * p.n)
+    assert ck.bsk_limbs.dtype == np.int8
 
 
 def test_testvec_constant_eighth(fast_keys):
@@ -84,12 +86,12 @@ def test_serialization_roundtrip(tmp_path, fast_keys):
     ck2 = tfhe.load_cloud_key(ckp)
     np.testing.assert_array_equal(np.asarray(sk.lv0), np.asarray(sk2.lv0))
     np.testing.assert_array_equal(np.asarray(ck.bsk), np.asarray(ck2.bsk))
-    np.testing.assert_array_equal(np.asarray(ck.bsk_kernel),
-                                  np.asarray(ck2.bsk_kernel))
+    np.testing.assert_array_equal(np.asarray(ck.bsk_limbs),
+                                  np.asarray(ck2.bsk_limbs))
     assert ck2.params is p
 
     # The reloaded key still bootstraps correctly.
-    from go_tfhe_tpu import gates
+    from go_tfhe_jax import gates
     bits = np.array([True, False])
     ct = cipher.lwe_encrypt_bool(jax.random.PRNGKey(1), bits, p.lwe_alpha,
                                  sk2.lv0)

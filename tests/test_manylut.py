@@ -5,7 +5,7 @@ Beyond-reference capability (engine.bootstrap_many,
 lut.Generator.gen_multi_lut, ops.blindrotate.mod_switch_2n theta>0).
 Covers: the coarse mod switch itself, identity+complement in one
 bootstrap, 4 functions at theta=2, the many-LUT full adder (1 bootstrap
-per bit), and portable-vs-interpreted-Pallas agreement.
+per bit).
 """
 
 import jax
@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, engine, lut
-from go_tfhe_tpu.ops.blindrotate import mod_switch_2n
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, engine, lut
+from go_tfhe_jax.ops.blindrotate import mod_switch_2n
 
 
 def test_coarse_mod_switch_values():
@@ -69,7 +69,7 @@ def test_bootstrap_many_four_functions_theta2(pbs_keys):
 
 def test_full_adder_manylut():
     """sum and carry of a+b+cin from ONE bootstrap, all 8 input combos."""
-    from go_tfhe_tpu.models import adders
+    from go_tfhe_jax.models import adders
 
     p = tfhe.TEST_NIBBLE
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(7), 3)
@@ -91,7 +91,7 @@ def test_full_adder_manylut():
 
 def test_ripple_add_manylut_4bit():
     """4-bit addition at 1 bootstrap/bit: 11 + 7 = 18 (with carry out)."""
-    from go_tfhe_tpu.models import adders
+    from go_tfhe_jax.models import adders
 
     p = tfhe.TEST_NIBBLE
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(9), 3)
@@ -109,41 +109,10 @@ def test_ripple_add_manylut_4bit():
     assert total == va + vb, (s.tolist(), cout)
 
 
-def test_bootstrap_many_pallas_matches_portable():
-    """Interpreted-Pallas transposed many-LUT path == portable path
-    bit-exactly (same keys, same coarse mod switch)."""
-    from go_tfhe_tpu.ops import pallas_t
-    pallas_t.INTERPRET = True
-    from go_tfhe_tpu.params import TFHEParams
-
-    p = TFHEParams(
-        name="test_many_pallas",
-        lwe_n=8, lwe_alpha=1.0 / (1 << 24),
-        n=256, lv1_alpha=1.0 / (1 << 30), nbit=8,
-        bgbit=8, l=3, basebit=4, iks_t=6, block_size=1,
-        message_modulus=8,
-    )
-    k1, k2 = jax.random.split(jax.random.PRNGKey(11))
-    sk = tfhe.gen_secret_key(k1, p)
-    ck = tfhe.gen_cloud_key(k2, sk, p, bands="all")
-    gen = lut.Generator(p)
-    mlut = gen.gen_multi_lut([lambda x: x, lambda x: (x + 1) % 4], theta=1)
-    rng = np.random.default_rng(13)
-    ct = jnp.asarray(rng.integers(0, 2 ** 32, size=(8, p.lwe_n + 1),
-                                  dtype=np.uint64).astype(np.uint32))
-    ref = np.asarray(engine._bootstrap_core_many(p, True, 2, 1,
-                                                 ck.bsk_kernel, ck.ksk, ct,
-                                                 mlut))
-    got = np.asarray(engine._bootstrap_core_many_t(p, True, 2, 1,
-                                                   ck.bsk_band_rev, ck.ksk,
-                                                   ct, mlut))
-    np.testing.assert_array_equal(got, ref)
-
-
 def test_gates_and_or_single_bootstrap(fast_keys):
     """gates.AND_OR: both truth tables from one bootstrap, outputs valid
     +-1/8 booleans that compose with ordinary gates."""
-    from go_tfhe_tpu import gates
+    from go_tfhe_jax import gates
 
     p, sk, ck = fast_keys
     bits_a = np.array([False, False, True, True])

@@ -8,20 +8,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-# The Nussbaumer transform is a measured-negative experimental artifact
-# (go_tfhe_tpu.experimental); the large-N bit-exactness cases are expensive
+# The Nussbaumer transform is an experimental artifact
+# (go_tfhe_jax.experimental); the large-N bit-exactness cases are expensive
 # on CPU, so they run in the slow tier — but the cheap small-N cases below
-# stay in the default tier so the suite keeps a CI representative
-# (ADVICE r4: a fully demoted suite silently loses coverage).
+# stay in the default tier so the suite keeps a CI representative (a fully
+# demoted suite silently loses coverage).
 _sl = [pytest.mark.slow]
 
-from go_tfhe_tpu.experimental.nussbaumer import (extprod_nuss_ref, forward,
+from go_tfhe_jax.experimental.nussbaumer import (extprod_nuss_ref, forward,
                                         inverse_unnormalized,
                                         negacyclic_mul_nuss_ref, nuss_shape)
-from go_tfhe_tpu.ops.polymul import (ext_band_from_trgsw,
+from go_tfhe_jax.ops.polymul import (ext_band_from_trgsw,
                                      negacyclic_extprod_toeplitz,
                                      negacyclic_mul_fixed)
-from go_tfhe_tpu.utils.torus import to_signed, to_unsigned
+from go_tfhe_jax.utils.torus import to_signed, to_unsigned
 
 
 def test_nuss_shape():

@@ -2,8 +2,8 @@
 
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.params import PROFILES, get_params
+import go_tfhe_jax as tfhe
+from go_tfhe_jax.params import PROFILES, get_params
 
 
 REFERENCE_VALUES = {

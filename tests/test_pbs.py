@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, lut
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, lut
 
 
 def test_lut_is_trivial_trlwe(pbs_keys):

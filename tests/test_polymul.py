@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from conftest import negacyclic_mul_oracle
-from go_tfhe_tpu.ops.polymul import (conv_kernel_from_poly,
+from go_tfhe_jax.ops.polymul import (conv_kernel_from_poly,
                                      ext_band_from_trgsw,
                                      negacyclic_extprod_i32,
                                      negacyclic_extprod_toeplitz,
@@ -18,7 +18,7 @@ from go_tfhe_tpu.ops.polymul import (conv_kernel_from_poly,
                                      extprod_kernel_from_trgsw,
                                      split_balanced_limbs_i8,
                                      toeplitz_from_band)
-from go_tfhe_tpu.utils.torus import to_signed
+from go_tfhe_jax.utils.torus import to_signed
 
 N = 64
 
@@ -82,8 +82,8 @@ def test_extprod_matches_schoolbook():
 
 def test_split_signed_limbs_exact():
     """split_signed_limbs_i8 reconstructs exactly as INTEGERS (required for
-    the multi-limb MXU external product of the large-BGBIT profiles)."""
-    from go_tfhe_tpu.ops.polymul import split_signed_limbs_i8
+    the multi-limb int8 external product of the large-BGBIT profiles)."""
+    from go_tfhe_jax.ops.polymul import split_signed_limbs_i8
     rng = np.random.default_rng(7)
     for bgbit, nd in [(9, 2), (14, 2), (16, 3), (18, 3), (22, 3), (23, 3)]:
         half = 1 << (bgbit - 1)

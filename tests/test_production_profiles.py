@@ -19,8 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, engine, lut
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, engine, lut
 
 pytestmark = [pytest.mark.slow, pytest.mark.production]
 
@@ -156,9 +156,9 @@ def test_pbs_uint6_extended():
     """Uint6 (N=2048, n=1071, polyExtendFactor=2 -> LUT size 4096): the
     FIRST of the extended profiles the reference advertises but never
     implemented (params/UINT_STATUS.md:20-31), end-to-end at its real
-    parameters (~15 min on 2-core CPU; ~1 min on TPU).  The parity-floor
-    gadget is marginal at this width (98.2% per-ct accuracy at batch 2048,
-    EXT_r05.json) — kept as the parity evidence with a MAJORITY assertion
+    parameters (~15 min on 2-core CPU).  The parity-floor gadget is
+    marginal at this width (NOISE_PBS_r04.json: 2.5 sigma, ~1.2% wrong
+    PBS outputs) — kept as the parity evidence with a MAJORITY assertion
     (an exact 4-ct sweep would flake ~7% of runs by the profile's own
     design inheritance); uint6_centered is the production-accurate,
     exactly-asserted variant."""
@@ -185,15 +185,15 @@ def test_pbs_uint6_extended():
 
 def test_pbs_uint6_centered():
     """uint6_centered: the centered-offset variant that fixes the floor
-    gadget's bias walk (EXT_r04.json: 98.2% -> 100% PBS accuracy at batch
-    2048; params.py UINT6_CENTERED comment for the mechanism)."""
+    gadget's bias walk (NOISE_PBS_r04.json: 2.5 -> 64.5 sigma; params.py
+    UINT6_CENTERED comment for the mechanism)."""
     _pbs_sweep_small(tfhe.get_params("uint6_centered"), [7, 52])
 
 
 def test_pbs_uint7_centered():
     """Uint7 (N=2048, n=1160, polyExtendFactor=4 -> LUT size 8192)
     end-to-end with the centered gadget — the 100%-accurate variant
-    (EXT_r04.json; ~30 min on 2-core CPU; ~2 min on TPU)."""
+    (NOISE_PBS_r04.json: 36.8 sigma; ~30 min on 2-core CPU)."""
     _pbs_sweep_small(tfhe.get_params("uint7_centered"), [0, 99])
 
 
@@ -202,8 +202,8 @@ def test_pbs_uint7_floor():
 
     This profile is measurably MARGINAL: the floor offset's deterministic
     bias random-walks to ~2^23.3 of phase error against the 2^24
-    half-segment tolerance — 73.8% per-ciphertext PBS accuracy at batch
-    2048 (EXT_r04.json; the reference advertises but never ran Uint7,
+    half-segment tolerance, so a large share of its PBS outputs decode
+    wrong (the reference advertises but never ran Uint7,
     params/UINT_STATUS.md).  The test therefore asserts a MAJORITY-correct
     sweep (>= 5/8 over 8 runs), not exactness — it exists to keep the
     documented marginality measured, and keygen emits the user-facing
@@ -236,7 +236,7 @@ def test_pbs_uint7_floor():
 def test_pbs_uint8_extended():
     """Uint8 (N=2048, n=1160, polyExtendFactor=9 — NON-power-of-two LUT
     size 18432, exercising the general mod switch) end-to-end
-    (~45 min on 2-core CPU; ~3 min on TPU).  Uses the centered variant:
+    (~45 min on 2-core CPU).  Uses the centered variant:
     at message modulus 256 the floor gadget's bias walk (~2^23.3) exceeds
     the 2^22 half-segment tolerance, so the parity-floor profile cannot
     decode reliably at all (params.py UINT6_CENTERED comment)."""
@@ -245,10 +245,10 @@ def test_pbs_uint8_extended():
 
 def test_manylut_full_adder_128bit_fast():
     """Multi-LUT full adder at the production throughput profile: sum AND
-    carry from ONE bootstrap, all 8 input combos (engine.bootstrap_many;
-    TPU-measured 8,155 full-adders/s + 8.2 sigma margin at theta=1,
-    NOISE_MANY_r05.json; ~3 min on 2-core CPU)."""
-    from go_tfhe_tpu.models import adders
+    carry from ONE bootstrap, all 8 input combos (engine.bootstrap_many,
+    theta=1; chip_smoke.py phase (c) runs the 8-bit ripple form on the
+    card; ~3 min on 2-core CPU)."""
+    from go_tfhe_jax.models import adders
 
     p = tfhe.get_params("128bit_fast")
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(6), 3)
@@ -272,7 +272,7 @@ def test_uint5_nibble_adder():
     """8-bit addition via 3 Uint5 programmable bootstraps — the reference's
     headline PBS demo at its production profile
     (examples/add_two_numbers/main.go:44-136, ~8 min on 2-core CPU)."""
-    from go_tfhe_tpu.models import adders
+    from go_tfhe_jax.models import adders
 
     p = tfhe.UINT5
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(2), 3)

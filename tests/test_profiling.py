@@ -1,8 +1,14 @@
 """Cost model / memory accounting sanity (SURVEY.md §5 tracing subsystem)."""
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.utils.profiling import (bootstrap_cost, key_memory_usage,
+import go_tfhe_jax as tfhe
+import pytest
+
+from go_tfhe_jax.utils.profiling import (DEVICE_PEAKS, bootstrap_cost,
+                                         bootstrap_utilization,
+                                         key_memory_usage,
                                          speed_of_light_report)
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_bootstrap_cost_p128():
@@ -10,7 +16,9 @@ def test_bootstrap_cost_p128():
     assert c.steps == 700
     # (2L*N)*2*(4 col groups)*N per step: 6144 * 8192 MACs, x700 steps.
     assert c.macs_per_ct == 6144 * 8192 * 700
-    assert c.seconds_at(197.0) > 0
+    assert c.seconds_at(DEVICE_PEAKS[H100]["int8_tops"]) > 0
+    # int8 limbs: 4 limbs x 700 rows x (2L=6) x 2 channels x 2N bytes
+    assert c.bsk_bytes == 4 * 700 * 6 * 2 * 2048
 
 
 def test_cost_scales_with_digit_limbs():
@@ -25,8 +33,14 @@ def test_cost_scales_with_digit_limbs():
 
 
 def test_speed_of_light_report_renders():
-    rep = speed_of_light_report(tfhe.P128, 2000.0, "v5e")
-    assert "speed of light" in rep and "2000" in rep
+    rep = speed_of_light_report(tfhe.P128, 2000.0, H100)
+    assert "speed of light" in rep and "2000" in rep and H100 in rep
+
+
+def test_unknown_device_has_no_peaks():
+    """A device missing from the peak table is an error, not a default."""
+    with pytest.raises(KeyError, match="no published peaks"):
+        bootstrap_utilization(tfhe.P128, 2000.0, "cpu")
 
 
 def test_key_memory_usage(fast_keys):
@@ -41,12 +55,12 @@ def test_metrics_logger(tmp_path):
     stream and an optional file, records retrievable for summaries."""
     import io
     import json as _json
-    from go_tfhe_tpu.utils.metrics import MetricsLogger
+    from go_tfhe_jax.utils.metrics import MetricsLogger
 
     path = str(tmp_path / "m.jsonl")
     s = io.StringIO()
     m = MetricsLogger(path=path, stream=s)
-    m.emit("throughput", 8377.0, unit="bootstraps/s", profile="128bit_fast")
+    m.emit("throughput", 1234.0, unit="bootstraps/s", profile="128bit_fast")
     m.emit_seconds("latency", 0.5, unit_count=4096)
     m.close()
     recs = [

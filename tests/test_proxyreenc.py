@@ -7,8 +7,8 @@ import jax
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, proxyreenc
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, proxyreenc
 
 P = tfhe.TEST_FAST
 

@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, engine, gates
-from go_tfhe_tpu.parallel import mesh as meshlib
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, engine, gates
+from go_tfhe_jax.parallel import mesh as meshlib
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from go_tfhe_tpu.utils.torus import (f64_to_torus, f64_to_torus_vec,
+from go_tfhe_jax.utils.torus import (f64_to_torus, f64_to_torus_vec,
                                      torus_to_f64)
 
 

@@ -1,13 +1,12 @@
-"""Machine-checkable "zero collectives in the hot loop" (VERDICT r4 #4).
+"""Machine-checkable "zero collectives in the hot loop".
 
 parallel/mesh.py's design claim — batch-sharded ciphertexts + replicated
-keys compile to a fully LOCAL per-chip program, with no ICI traffic inside
-the 700-step blind-rotate loop — was prose until now.  Here the sharded
+keys compile to a fully LOCAL per-device program, with no interconnect
+traffic inside the 700-step blind-rotate loop.  Here the sharded
 bootstrap is compiled on the 8-device virtual mesh and the GSPMD-partitioned
 HLO is walked: the module must contain the sequential while loop AND no
 collective instruction anywhere (module-wide zero is strictly stronger than
-loop-body zero).  This is the compiled-artifact backing for the >= 80%
-multi-chip scaling design claim (SCALING_r04.json caveats).
+loop-body zero).  chip_smoke.py --four measures the scaling on cards.
 """
 
 import re
@@ -17,9 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import engine
-from go_tfhe_tpu.parallel import mesh as meshlib
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import engine
+from go_tfhe_jax.parallel import mesh as meshlib
 
 # HLO collective instructions (a match means cross-device communication).
 _COLLECTIVES = ("all-reduce", "all-gather", "all-to-all",
@@ -37,7 +36,7 @@ def _partitioned_hlo(mesh, ck, ct):
     ct_s = meshlib.shard_batch(mesh, ct)
     p = ck.params
     lowered = engine._bootstrap_core.lower(
-        p, True, ck_r.bsk_kernel, ck_r.ksk, ct_s, ck_r.testvec)
+        p, True, ck_r.bsk_limbs, ck_r.ksk, ct_s, ck_r.testvec)
     return lowered.compile().as_text()
 
 
@@ -47,7 +46,7 @@ def _partitioned_hlo_many(mesh, ck, ct):
     ct_s = meshlib.shard_batch(mesh, ct)
     p = ck.params
     lowered = engine._bootstrap_core_many.lower(
-        p, True, 2, 1, ck_r.bsk_kernel, ck_r.ksk, ct_s, ck_r.testvec)
+        p, True, 2, 1, ck_r.bsk_limbs, ck_r.ksk, ct_s, ck_r.testvec)
     return lowered.compile().as_text()
 
 

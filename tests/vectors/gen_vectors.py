@@ -4,7 +4,7 @@ sub-kernels.
 This script is a LITERAL SCALAR TRANSCRIPTION of the Go reference's code
 paths (file:line cited per function) into plain Python loops over Python
 ints / IEEE-754 doubles — the same semantics Go has.  It deliberately shares
-NO code with go_tfhe_tpu (no imports from the package, no numpy
+NO code with go_tfhe_jax (no imports from the package, no numpy
 vectorization of the core loops), so a systematic misreading would have to
 be made twice, in two different programming styles, to go unnoticed.
 

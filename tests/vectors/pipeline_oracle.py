@@ -1,7 +1,7 @@
 """Scalar transcription of the reference's COMPLETE bootstrap pipeline.
 
-Round-4 VERDICT missing-#1: bit-exact parity was proven only for
-sub-kernels; this module closes the last seam — a systematic COMPOSITION
+Bit-exact parity of the sub-kernels alone leaves one seam; this module
+closes it — a systematic COMPOSITION
 error (rotation order, CMUX formula, key-switch indexing, ...) — by
 transcribing the full composed pipeline
 
@@ -9,7 +9,7 @@ transcribing the full composed pipeline
     (evaluator/evaluator.go:110-148)
 
 into plain Python loops over Python ints, sharing NO code with
-go_tfhe_tpu.  Key material (raw BSK/KSK/testvec arrays) is plain DATA fed
+go_tfhe_jax.  Key material (raw BSK/KSK/testvec arrays) is plain DATA fed
 in from outside; the algorithm here is derived only from the cited Go
 lines.  tests/test_parity_pipeline.py runs this oracle against the JAX
 engine on the same keys and asserts bit-exact equality of the blind-rotate
@@ -21,8 +21,8 @@ FFT (trgsw/trgsw.go:108-134) whose *intended* value is the exact negacyclic
 integer convolution mod 2^32 (digit magnitudes <= half_bg keep products
 within float64's exact range; floatModQInPlace rounds back to the lattice,
 poly/fourier_transform.go:87-104).  This oracle computes that exact value
-with schoolbook integer arithmetic — the same semantics both engine paths
-(portable Toeplitz-einsum and Pallas MXU) implement exactly.
+with schoolbook integer arithmetic — the same semantics the engine's int8
+limb contraction (and its int32 Toeplitz reference) implement exactly.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Round-3 experiment: noise margin of a bgbit=8/l=2 TPU-tuned gadget vs
+"""Round-3 experiment: noise margin of a bgbit=8/l=2 gadget vs
 the shipped 128bit_fast (bgbit=6, l_used=2) approximate gadget.
 
 Hypothesis: the l_used=2 fast path's 2^27 phase std is dominated by the
@@ -14,8 +14,8 @@ import time
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, engine
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, engine
 
 p0 = tfhe.P128
 B = 512

@@ -12,10 +12,10 @@ import time
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu.utils.backend import enable_compilation_cache
+import go_tfhe_jax as tfhe
+from go_tfhe_jax.utils.cache import enable_compilation_cache
 enable_compilation_cache()
-from go_tfhe_tpu import cipher, engine
+from go_tfhe_jax import cipher, engine
 
 p0 = tfhe.P128
 B = 256

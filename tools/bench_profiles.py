@@ -1,8 +1,8 @@
-"""80/110-bit profile throughput (the BENCH_profiles artifact).
+"""80/110-bit profile throughput on the default device.
 
 Same methodology as bench.py (correctness-gated, queued steady-state
-reps) at the other two reference security levels; the reference's
-single-gate numbers are README.md:398.
+reps timed with block_until_ready) at the other two reference security
+levels; the reference's single-gate numbers are README.md:398.
 
 Usage: python tools/bench_profiles.py [--profiles 80bit_fast,110bit_fast]
 """
@@ -14,9 +14,9 @@ import jax
 import numpy as np
 
 sys.path.insert(0, ".")
-import go_tfhe_tpu as tfhe  # noqa: E402
-from go_tfhe_tpu import cipher, engine  # noqa: E402
-from go_tfhe_tpu.utils.backend import enable_compilation_cache  # noqa: E402
+import go_tfhe_jax as tfhe  # noqa: E402
+from go_tfhe_jax import cipher, engine  # noqa: E402
+from go_tfhe_jax.utils.cache import enable_compilation_cache  # noqa: E402
 
 enable_compilation_cache()
 
@@ -47,9 +47,11 @@ for name in profiles.split(","):
     t0 = time.perf_counter()
     for _ in range(5):
         out = nand(ct_a, ct_b)
-    _ = np.asarray(out[0, :1])
+    out.block_until_ready()
     dt = (time.perf_counter() - t0) / 5
+    dev = jax.devices()[0]
     print(json.dumps({
         "metric": f"gate_bootstraps_per_sec_{name}",
-        "value": round(batch / dt, 2), "unit": "bootstraps/s",
+        "value": batch / dt, "unit": "bootstraps/s",
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
         "reference_single_gate_ms": REF_MS.get(name, "?")}), flush=True)

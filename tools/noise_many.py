@@ -7,7 +7,7 @@ against the message-space half-segment margin (2^32 / (2m) ... the
 decode decision boundary is half a segment, 2^32/(2m)/2? — here margin =
 2^(32)/(4m), the distance from a segment center to its edge).
 
-Writes NOISE_MANY_<round>.json rows (one per theta).
+Prints one JSON row per theta (phase std, margin in sigma, wrong answers).
 
 Usage: python tools/noise_many.py [--profile 128bit_fast] [--batch 1024]
 """
@@ -20,9 +20,9 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, ".")
-import go_tfhe_tpu as tfhe  # noqa: E402
-from go_tfhe_tpu import cipher, engine, lut  # noqa: E402
-from go_tfhe_tpu.utils.backend import enable_compilation_cache  # noqa: E402
+import go_tfhe_jax as tfhe  # noqa: E402
+from go_tfhe_jax import cipher, engine, lut  # noqa: E402
+from go_tfhe_jax.utils.cache import enable_compilation_cache  # noqa: E402
 
 enable_compilation_cache()
 

@@ -25,9 +25,9 @@ import numpy as np
 
 sys.path.insert(0, ".")  # repo root
 
-import go_tfhe_tpu as tfhe  # noqa: E402
-from go_tfhe_tpu import cipher, engine  # noqa: E402
-from go_tfhe_tpu.utils.backend import enable_compilation_cache  # noqa: E402
+import go_tfhe_jax as tfhe  # noqa: E402
+from go_tfhe_jax import cipher, engine  # noqa: E402
+from go_tfhe_jax.utils.cache import enable_compilation_cache  # noqa: E402
 
 MARGIN = 2 ** 29  # |ideal phase| 2^32/8, decision boundary at 0 and 2^31/2
 

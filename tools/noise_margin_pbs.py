@@ -4,9 +4,9 @@ Same methodology as tools/noise_margin.py but for programmable
 bootstrapping: run an identity LUT over a batch of encrypted messages,
 measure the output phase deviation from the ideal x/(2m) encoding, and
 report it against the PBS decision margin 2^32/(4m) (half the message
-segment).  This quantifies the floor-vs-centered gadget split the
-EXT_r04.json accuracy numbers show (params.py UINT6_CENTERED comment:
-the floor offset's bias walk sits right at Uint6's margin).
+segment).  This quantifies the floor-vs-centered gadget split
+(NOISE_PBS_r04.json; params.py UINT6_CENTERED comment: the floor offset's
+bias walk sits right at Uint6's margin).
 
 Usage: python tools/noise_margin_pbs.py [--batch 1024]
        [--profiles uint5,uint6,uint6_centered]
@@ -24,9 +24,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-import go_tfhe_tpu as tfhe  # noqa: E402
-from go_tfhe_tpu import cipher, lut  # noqa: E402
-from go_tfhe_tpu.utils.backend import enable_compilation_cache  # noqa: E402
+import go_tfhe_jax as tfhe  # noqa: E402
+from go_tfhe_jax import cipher, lut  # noqa: E402
+from go_tfhe_jax.utils.cache import enable_compilation_cache  # noqa: E402
 
 
 def measure(profile: str, batch: int) -> dict:

@@ -1,11 +1,11 @@
 """Pre-populate the persistent XLA compilation cache (``make warm``).
 
-A fresh machine pays the full compile cost of the 700-step bootstrap loop
-on first use (~60 s keygen + ~60 s first batch on a v5e with an empty
-cache; several minutes for a never-before-seen shape).  This script runs
-one tiny batch through keygen + NAND + (optionally) PBS for the
-production profiles so every later process start hits the persistent
-cache (utils.backend.enable_compilation_cache) and completes in seconds.
+A fresh checkout pays the full compile cost of keygen and the 700-step
+bootstrap loop on first use.  This script runs one batch through keygen +
+NAND for the production profiles so every later process start of the same
+checkout hits the persistent cache (utils.cache.enable_compilation_cache:
+JAX_COMPILATION_CACHE_DIR if set, else <checkout>/.jax_cache).  The batch
+is part of the compiled shape: warm the batch you will serve.
 
 Usage: python tools/warm_cache.py [--profiles 128bit_fast,128bit]
                                   [--batch 256]
@@ -23,9 +23,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-import go_tfhe_tpu as tfhe
-from go_tfhe_tpu import cipher, engine
-from go_tfhe_tpu.utils.backend import enable_compilation_cache
+import go_tfhe_jax as tfhe
+from go_tfhe_jax import cipher, engine
+from go_tfhe_jax.utils.cache import enable_compilation_cache
 
 
 def warm(name: str, batch: int) -> None:
@@ -33,14 +33,12 @@ def warm(name: str, batch: int) -> None:
     k1, k2, k3, k4 = jax.random.split(jax.random.PRNGKey(0), 4)
     t0 = time.perf_counter()
     sk = tfhe.gen_secret_key(k1, p)
-    ck = tfhe.gen_cloud_key(k2, sk, p)
-    _ = np.asarray(ck.bsk)[:1, :1, :1, :1]
+    ck = jax.block_until_ready(tfhe.gen_cloud_key(k2, sk, p))
     t1 = time.perf_counter()
     bits = np.resize([False, True], batch)
     ct_a = cipher.lwe_encrypt_bool(k3, bits, p.lwe_alpha, sk.lv0)
     ct_b = cipher.lwe_encrypt_bool(k4, bits, p.lwe_alpha, sk.lv0)
-    out = engine.bootstrap(ck, engine.prepare_nand(ct_a, ct_b))
-    _ = np.asarray(out[0, :1])
+    jax.block_until_ready(engine.bootstrap(ck, engine.prepare_nand(ct_a, ct_b)))
     t2 = time.perf_counter()
     print(f"{name}: keygen {t1 - t0:.1f}s, first batch({batch}) "
           f"{t2 - t1:.1f}s — cache warmed")
@@ -56,8 +54,8 @@ def main() -> None:
     ap.add_argument("--unpack", metavar="TARBALL", default=None,
                     help="extract a previously packed cache artifact into "
                          "the cache dir and exit (no warming; the target "
-                         "host must run the same chip generation + "
-                         "jax/libtpu build, or entries simply miss)")
+                         "host must run the same device model and jax "
+                         "build, or entries simply miss)")
     args = ap.parse_args()
     cache_dir = enable_compilation_cache()
     if args.unpack:
@@ -67,8 +65,8 @@ def main() -> None:
         print(f"unpacked {args.unpack} -> {cache_dir} "
               f"({len(os.listdir(cache_dir))} entries)")
         return
-    on_tpu = jax.default_backend() == "tpu"
-    batch = args.batch or (4096 if on_tpu else 16)
+    on_gpu = jax.devices()[0].platform == "gpu"
+    batch = args.batch or (4096 if on_gpu else 16)
     for name in args.profiles.split(","):
         warm(name.strip(), batch)
     if args.pack:
